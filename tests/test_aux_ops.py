@@ -2,8 +2,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from nrslam_tpu.geometry import cameras
-from nrslam_tpu.ops import dbscan, masking, stereo
+from nrslam.geometry import cameras
+from nrslam.ops import dbscan, masking, stereo
 
 
 def test_dbscan_two_clusters_and_noise():
@@ -53,7 +53,7 @@ def _stereo_pair(seed=0, h=96, w=128, disparity=8.0):
     key = jax.random.PRNGKey(seed)
     base = jax.random.uniform(key, (h // 4, w // 4)) * 255
     img = jnp.kron(base, jnp.ones((4, 4)))
-    from nrslam_tpu.ops import image as image_ops
+    from nrslam.ops import image as image_ops
     img = image_ops.gaussian_blur(img, 5)
     ys, xs = jnp.meshgrid(jnp.arange(h, dtype=jnp.float32),
                           jnp.arange(w, dtype=jnp.float32), indexing="ij")
@@ -67,7 +67,7 @@ def test_stereo_klt_depth():
     left, right = _stereo_pair()
     kps = jnp.array([[40.0, 40.0], [70.0, 50.0], [90.0, 60.0]])
     valid = jnp.ones(3, bool)
-    from nrslam_tpu.ops import klt as klt_mod
+    from nrslam.ops import klt as klt_mod
     cfg = klt_mod.KLTConfig(win=15, max_level=2)
     X, ok = stereo.stereo_lucas_kanade(cam, bf, left, right, kps, valid, cfg)
     ok = np.asarray(ok)

@@ -4,13 +4,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from nrslam_tpu.config import Settings
-from nrslam_tpu.eval import metrics
-from nrslam_tpu.geometry import se3
-from nrslam_tpu.slam import state as state_mod
-from nrslam_tpu.slam.state import Config
-from nrslam_tpu.utils import checkpoint
-from nrslam_tpu.utils.profiler import TimeProfiler
+from nrslam.config import Settings
+from nrslam.eval import metrics
+from nrslam.geometry import se3
+from nrslam.slam import state as state_mod
+from nrslam.slam.state import Config
+from nrslam.utils import checkpoint
+from nrslam.utils.profiler import TimeProfiler
 
 
 def test_settings_parses_reference_yaml(tmp_path):
@@ -96,7 +96,7 @@ def test_profiler():
 
 
 def test_viz_dumps(tmp_path):
-    from nrslam_tpu.viz import dumps
+    from nrslam.viz import dumps
     config = Config(max_points=16, max_keyframes=2, temporal_window=3,
                     klt_levels=2, klt_win=5)
     state = state_mod.empty_state(config, (24, 32))
@@ -118,7 +118,7 @@ def test_viz_flow_trails(tmp_path):
     """Flow-trail overlays + 3D trail export (DrawOpticalFlow,
     image_visualizer.cc:117-150; GetLandmarkFlow(20) -> Draw3DFlow,
     map_visualizer.cc:166-199)."""
-    from nrslam_tpu.viz import dumps
+    from nrslam.viz import dumps
     config = Config(max_points=8, max_keyframes=2, temporal_window=4,
                     klt_levels=2, klt_win=5)
     state = state_mod.empty_state(config, (24, 32))
@@ -143,7 +143,7 @@ def test_viz_flow_trails(tmp_path):
 
 
 def test_viz_cluster_and_inlier_overlays():
-    from nrslam_tpu.viz import dumps
+    from nrslam.viz import dumps
     n = 40
     key = jax.random.PRNGKey(0)
     ref = 5.0 + 20.0 * jax.random.uniform(key, (n, 2))

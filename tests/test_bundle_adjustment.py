@@ -2,9 +2,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from nrslam_tpu.geometry import cameras, se3
-from nrslam_tpu.solver import bundle_adjustment as ba
-from nrslam_tpu.solver import pose_deformation as pd
+from nrslam.geometry import cameras, se3
+from nrslam.solver import bundle_adjustment as ba
+from nrslam.solver import pose_deformation as pd
 
 
 CAM = cameras.pinhole(472.65, 472.65, 479.5, 359.5)

@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nrslam_tpu.geometry import cameras
+from nrslam.geometry import cameras
 
 
 PIN = cameras.pinhole(472.65, 472.65, 479.5, 359.5)

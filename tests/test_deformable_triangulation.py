@@ -2,8 +2,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from nrslam_tpu.geometry import cameras, se3
-from nrslam_tpu.solver import deformable_triangulation as dt
+from nrslam.geometry import cameras, se3
+from nrslam.solver import deformable_triangulation as dt
 
 
 CAM = cameras.pinhole(472.65, 472.65, 479.5, 359.5)

@@ -25,8 +25,8 @@ REPO = Path(__file__).resolve().parent.parent
 
 @pytest.mark.slow
 def test_run_slam_simulation_from_disk(tmp_path):
-    from nrslam_tpu.datasets import synthetic
-    from nrslam_tpu.datasets.simulation_export import (
+    from nrslam.datasets import synthetic
+    from nrslam.datasets.simulation_export import (
         export_simulation_dataset)
 
     scene = synthetic.SceneConfig(deform_amp=0.02)
@@ -74,11 +74,11 @@ def test_run_slam_simulation_from_disk(tmp_path):
 
 def test_simulation_loader_roundtrip(tmp_path):
     """Fast loader-only check: poses and depth survive the disk round trip."""
-    from nrslam_tpu.datasets import synthetic
-    from nrslam_tpu.datasets.loaders import Simulation
-    from nrslam_tpu.datasets.simulation_export import (
+    from nrslam.datasets import synthetic
+    from nrslam.datasets.loaders import Simulation
+    from nrslam.datasets.simulation_export import (
         export_simulation_dataset)
-    from nrslam_tpu.geometry import se3
+    from nrslam.geometry import se3
 
     scene = synthetic.SceneConfig(height=60, width=80, deform_amp=0.0)
     root = export_simulation_dataset(tmp_path / "sim", scene, n_frames=3)

@@ -26,10 +26,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nrslam_tpu.datasets import synthetic
-from nrslam_tpu.eval import metrics
-from nrslam_tpu.slam import system as system_mod
-from nrslam_tpu.slam.state import Config
+from nrslam.datasets import synthetic
+from nrslam.eval import metrics
+from nrslam.slam import system as system_mod
+from nrslam.slam.state import Config
 
 N_FRAMES = 220
 BLACKOUT = range(100, 104)   # frames fed as black -> tracking collapse

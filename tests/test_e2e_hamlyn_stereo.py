@@ -24,8 +24,8 @@ REPO = Path(__file__).resolve().parent.parent
 
 
 def _export(tmp_path, n_frames=36):
-    from nrslam_tpu.datasets import synthetic
-    from nrslam_tpu.datasets.hamlyn_export import (
+    from nrslam.datasets import synthetic
+    from nrslam.datasets.hamlyn_export import (
         export_hamlyn_stereo_dataset)
     scene = synthetic.SceneConfig(deform_amp=0.02)
     return export_hamlyn_stereo_dataset(tmp_path / "hamlyn", scene,
@@ -57,7 +57,7 @@ def test_run_slam_hamlyn_stereo_from_disk(tmp_path):
     assert summary["frames_tracked"] >= 10, summary
     # Stereo-GT depth RMSE: NCC matches on the synthetic texture are noisy
     # relative to precomputed depth, and the monocular map is scale-aligned
-    # during evaluation; measured median ~0.1 (r5) at scene depth ~3.
+    # during evaluation; measured median ~0.1 (CPU) at scene depth ~3.
     assert summary["median_stereo_rmse"] is not None, summary
     assert summary["median_stereo_rmse"] < 0.5, summary
     lines = rmse_file.read_text().strip().splitlines()
@@ -69,7 +69,7 @@ def test_endomapper_names_txt_reads_same_cache(tmp_path):
     """The exported cache doubles as an Endomapper dataset via names.txt
     (endomapper.cc's split-once convention)."""
     root, scene = _export(tmp_path, n_frames=4)
-    from nrslam_tpu.datasets.loaders import Endomapper
+    from nrslam.datasets.loaders import Endomapper
     ds = Endomapper(str(root))
     assert len(ds) == 4
     img = ds.get_image(2)
@@ -91,7 +91,7 @@ def test_hamlyn_video_split_prepare(tmp_path):
         vw.write(frame)
     vw.release()
 
-    from nrslam_tpu.datasets.loaders import Hamlyn
+    from nrslam.datasets.loaders import Hamlyn
     out = tmp_path / "split" / "images"
     n = Hamlyn.prepare(str(video), str(out))
     assert n == 6
@@ -108,7 +108,7 @@ def test_rectification_maps_on_exported_pair(tmp_path):
     in the rectified projections (bf = -P2[0,3] = fx_rect * baseline)."""
     cv2 = pytest.importorskip("cv2")
     root, scene = _export(tmp_path, n_frames=1)
-    from nrslam_tpu.datasets import rectification as rect
+    from nrslam.datasets import rectification as rect
 
     b = 0.12
     K = np.array([[scene.fx, 0.0, (scene.width - 1) / 2.0],

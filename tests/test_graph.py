@@ -2,7 +2,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from nrslam_tpu.slam import graph as g
+from nrslam.slam import graph as g
 
 
 def test_initialize_all_pairs():

@@ -2,7 +2,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from nrslam_tpu.ops import image
+from nrslam.ops import image
 
 
 def _test_img(h=64, w=96, seed=0):

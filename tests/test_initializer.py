@@ -2,8 +2,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from nrslam_tpu.geometry import cameras, se3
-from nrslam_tpu.slam import initializer as ini
+from nrslam.geometry import cameras, se3
+from nrslam.slam import initializer as ini
 
 
 CAM = cameras.pinhole(400.0, 400.0, 320.0, 240.0)

@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nrslam_tpu.ops import klt
-from nrslam_tpu.ops import shi_tomasi
+from nrslam.ops import klt
+from nrslam.ops import shi_tomasi
 
 
 def textured_image(h=120, w=160, seed=0):
@@ -25,7 +25,7 @@ def shift_image(img, dx, dy):
     h, w = img.shape
     ys, xs = jnp.meshgrid(jnp.arange(h, dtype=jnp.float32),
                           jnp.arange(w, dtype=jnp.float32), indexing="ij")
-    from nrslam_tpu.ops import image as image_ops
+    from nrslam.ops import image as image_ops
     uv = jnp.stack([xs - dx, ys - dy], axis=-1)
     return image_ops.bilinear_sample(img, uv)
 
@@ -156,3 +156,21 @@ def test_shi_tomasi_occupied_suppression():
     if len(pts1):
         dists = np.min(np.linalg.norm(pts1[:, None] - pts0[None], axis=-1), axis=-1)
         assert dists.min() > shi_tomasi.OUTER_RADIUS
+
+
+@pytest.mark.parametrize("channels", [None, 2], ids=["gray", "multichannel"])
+def test_extract_patches_equals_direct_indexing(channels):
+    """One-hot patch extraction is exact: every output sums a single
+    nonzero product, including rows/cols clamped at the image border."""
+    h, w, size = 37, 53, 9
+    key = jax.random.PRNGKey(3)
+    shape = (h, w) if channels is None else (h, w, channels)
+    img = 255.0 * jax.random.uniform(key, shape)
+    y0 = jnp.array([-4, 0, 10, 30, 33], jnp.int32)
+    x0 = jnp.array([-2, 47, 5, 20, 50], jnp.int32)
+    out = np.asarray(jax.jit(klt._extract_patches, static_argnums=3)(
+        img, y0, x0, size))
+    rows = np.clip(np.asarray(y0)[:, None] + np.arange(size), 0, h - 1)
+    cols = np.clip(np.asarray(x0)[:, None] + np.arange(size), 0, w - 1)
+    ref = np.asarray(img)[rows[:, :, None], cols[:, None, :]]
+    np.testing.assert_array_equal(out, ref)

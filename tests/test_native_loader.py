@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from nrslam_tpu.datasets import native_loader
+from nrslam.datasets import native_loader
 
 
 pytestmark = pytest.mark.skipif(not native_loader.build(),

@@ -1,6 +1,6 @@
 """Multi-device sharding tests on the virtual 8-CPU mesh.
 
-Validates the distribution design of nrslam_tpu/parallel: state sharded over
+Validates the distribution design of nrslam/parallel: state sharded over
 the point axis runs the full pipeline steps unchanged (XLA SPMD inserts the
 collectives) and produces the same numbers as single-device execution; the
 hand-written shard_map pose system psums to the identical 6x6 normal
@@ -14,7 +14,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from nrslam_tpu.parallel import sharding as shard_mod
+from nrslam.parallel import sharding as shard_mod
 
 
 @pytest.fixture(scope="module")
@@ -30,7 +30,7 @@ def _problem(max_points=64):
 
 
 def test_sharded_tracking_matches_single_device(mesh):
-    from nrslam_tpu.slam import tracking as tracking_mod
+    from nrslam.slam import tracking as tracking_mod
 
     state, pyr, cam, config, shape = _problem()
     mask = jnp.ones(shape, bool)
@@ -52,8 +52,8 @@ def test_sharded_tracking_matches_single_device(mesh):
 
 
 def test_shard_map_pose_system_matches(mesh):
-    from nrslam_tpu.solver import residuals, core
-    from nrslam_tpu.geometry import se3
+    from nrslam.solver import residuals, core
+    from nrslam.geometry import se3
 
     state, pyr, cam, config, shape = _problem()
     w = state.slot_used.astype(jnp.float32)
@@ -84,9 +84,9 @@ def test_kf_sharded_ba_matches_single_device():
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 virtual devices")
     from tests.test_bundle_adjustment import make_window, CAM
-    from nrslam_tpu.geometry import se3
-    from nrslam_tpu.parallel import ba_shard
-    from nrslam_tpu.solver import bundle_adjustment as ba
+    from nrslam.geometry import se3
+    from nrslam.parallel import ba_shard
+    from nrslam.solver import bundle_adjustment as ba
 
     poses_true, L_true, obs, problem = make_window(K=8, P=64)
     key = jax.random.PRNGKey(7)
@@ -107,7 +107,7 @@ def test_kf_sharded_ba_matches_single_device():
     np.testing.assert_allclose(np.asarray(L_sh), np.asarray(L_ref), atol=2e-3)
 
     # and it actually solved the problem, not just matched:
-    from nrslam_tpu.geometry import cameras
+    from nrslam.geometry import cameras
     pred = cameras.project(CAM, se3.apply(
         jax.tree.map(lambda x: x[:, None], poses_sh), L_sh))
     rmse = float(jnp.sqrt(jnp.mean(jnp.sum((pred - obs) ** 2, -1))))
@@ -122,7 +122,7 @@ def test_kf_sharded_ba_masked_keyframes():
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 virtual devices")
     from tests.test_bundle_adjustment import make_window, CAM
-    from nrslam_tpu.parallel import ba_shard
+    from nrslam.parallel import ba_shard
 
     poses_true, L_true, obs, problem = make_window(K=8, P=64)
     kf_valid = jnp.arange(8) < 5

@@ -2,8 +2,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from nrslam_tpu.geometry import cameras, se3
-from nrslam_tpu.solver import pose_deformation as pd
+from nrslam.geometry import cameras, se3
+from nrslam.solver import pose_deformation as pd
 
 
 CAM = cameras.pinhole(472.65, 472.65, 479.5, 359.5)
@@ -44,7 +44,7 @@ def run(X, obs, rounds=(10, 10)):
     (tracking.cc:291-330 calls CameraPoseEstimation before
     CameraPoseAndDeformationEstimation; the joint problem has a
     translation gauge freedom that the pose-only seed anchors)."""
-    from nrslam_tpu.solver import pose_only
+    from nrslam.solver import pose_only
     valid = jnp.ones(X.shape[0], bool)
     T_seed = pose_only.camera_pose_optimization(CAM, se3.identity(), X, obs, valid)
     nbr_idx, nbr_w, nbr_d0, nbr_valid = knn_table(X)

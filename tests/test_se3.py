@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nrslam_tpu.geometry import se3
+from nrslam.geometry import se3
 
 
 def random_se3(key, batch=()):

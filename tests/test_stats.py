@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from nrslam_tpu.utils import stats
+from nrslam.utils import stats
 
 
 def test_masked_median_matches_nth_element():

@@ -2,13 +2,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from nrslam_tpu.datasets import synthetic
-from nrslam_tpu.geometry import cameras, se3
-from nrslam_tpu.ops import klt
-from nrslam_tpu.slam import graph as graph_mod
-from nrslam_tpu.slam import state as state_mod
-from nrslam_tpu.slam import system as system_mod
-from nrslam_tpu.slam.state import Config
+from nrslam.datasets import synthetic
+from nrslam.geometry import cameras, se3
+from nrslam.ops import klt
+from nrslam.slam import graph as graph_mod
+from nrslam.slam import state as state_mod
+from nrslam.slam import system as system_mod
+from nrslam.slam.state import Config
 
 
 def test_stereo_bootstrap():
@@ -25,7 +25,7 @@ def test_stereo_bootstrap():
         15 + 98 * jax.random.uniform(key, (n,)),
         15 + 66 * jax.random.uniform(jax.random.fold_in(key, 1), (n,)),
     ], -1)
-    from nrslam_tpu.ops import image as image_ops
+    from nrslam.ops import image as image_ops
     depths = image_ops.bilinear_sample(depth, kps)
     rays = cameras.unproject(cam, kps)
     landmarks = rays * depths[:, None]

@@ -4,14 +4,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from nrslam_tpu.datasets import synthetic
-from nrslam_tpu.geometry import cameras, se3
-from nrslam_tpu.ops import klt
-from nrslam_tpu.slam import graph as graph_mod
-from nrslam_tpu.slam import mapping as mapping_mod
-from nrslam_tpu.slam import state as state_mod
-from nrslam_tpu.slam import tracking as tracking_mod
-from nrslam_tpu.slam.state import Config
+from nrslam.datasets import synthetic
+from nrslam.geometry import cameras, se3
+from nrslam.ops import klt
+from nrslam.slam import graph as graph_mod
+from nrslam.slam import mapping as mapping_mod
+from nrslam.slam import state as state_mod
+from nrslam.slam import tracking as tracking_mod
+from nrslam.slam.state import Config
 
 
 SCENE = synthetic.SceneConfig(height=96, width=128, fx=100.0, fy=100.0)
@@ -30,7 +30,7 @@ def tracking_state(n=48, seed=0):
         15 + 98 * jax.random.uniform(key, (CFG.max_points,)),
         15 + 66 * jax.random.uniform(jax.random.fold_in(key, 1), (CFG.max_points,)),
     ], -1)
-    from nrslam_tpu.ops import image as image_ops
+    from nrslam.ops import image as image_ops
     d = image_ops.bilinear_sample(depth, uv)
     X = cameras.unproject(CAM, uv) * d[:, None]
     used = jnp.arange(CFG.max_points) < n

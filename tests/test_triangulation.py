@@ -2,7 +2,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from nrslam_tpu.geometry import se3, triangulation
+from nrslam.geometry import se3, triangulation
 
 
 def test_midpoint_recovers_points():
